@@ -1,7 +1,7 @@
 """Scaling walkthrough: sharded queries, multi-host wiring, and the
 int64 engine past 2^31 columns.
 
-Run with a virtual device mesh (no TPU pod needed):
+Run with a virtual device mesh (no multi-GPU host needed):
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
         python examples/scaling_example.py

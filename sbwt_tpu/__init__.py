@@ -1,4 +1,4 @@
-"""sbwt-tpu: a TPU-native SBWT k-mer index framework.
+"""sbwt-tpu: an accelerator-native SBWT k-mer index framework in JAX.
 
 A from-scratch JAX/XLA implementation of the Spectral Burrows-Wheeler
 Transform k-mer membership index, with the capabilities of the reference

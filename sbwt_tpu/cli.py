@@ -129,7 +129,7 @@ def search_main(argv) -> int:
                    choices=["auto", "lf", "turbo", "turbo1", "turbo2", "turbo3"],
                    default="auto",
                    help="query engine: LF rank engine, or the successor turbo "
-                        "table (turbo1: 16 B HBM/column row tier; turbo2: "
+                        "table (turbo1: 16 B device memory/column row tier; turbo2: "
                         "pairs, 128 B/column; turbo3: triples, 1 KiB/column; "
                         "turbo/auto pick the largest arity that fits measured "
                         "free device memory, degrading 3 -> 2 -> 1 -> LF)")
@@ -153,9 +153,12 @@ def search_main(argv) -> int:
     write_log(f"Loaded the index variant {sbwt.variant}")
     # Any variant is turbo-eligible: the successor table is variant-
     # independent once built (ops/turbo.py build_turbo), so compressed
-    # on-disk variants query at turbo speed too.  Auto mode still
-    # requires streaming support + a precalc table (build_turbo raises
-    # otherwise and the except below falls back to the LF engine).
+    # on-disk variants query at turbo speed too.  build_turbo raises
+    # ValueError for the documented cases it does not serve (no
+    # streaming support, no precalc table, an unknown arity, an int32
+    # row-index overflow); only those fall back to the LF engine.  Any
+    # other error (a compile failure, device out-of-memory) fails the
+    # command instead of hiding behind a slow run.
     want_turbo = args.engine in ("turbo", "turbo1", "turbo2", "turbo3") or (
         args.engine == "auto" and sbwt.has_streaming_query_support()
     )
@@ -168,7 +171,7 @@ def search_main(argv) -> int:
                 write_log("Turbo table exceeds free device memory; using LF engine")
             else:
                 write_log(f"Turbo successor engine enabled (arity {chosen})")
-        except Exception as e:  # fall back to the LF engine
+        except ValueError as e:
             sbwt._turbo = None
             write_log(f"Turbo engine unavailable ({e}); using LF engine")
     n = run_query_files(sbwt, in_files, out_files, args.gzip_output)
@@ -253,6 +256,9 @@ def main(argv=None) -> int:
     if cmd not in COMMANDS:
         sys.stderr.write(f"Invalid command: {cmd}\n")
         return 1
+    from .utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
     try:
         return COMMANDS[cmd](rest)
     except Exception as e:  # mirror the reference's top-level catch (sbwt.cpp:51-57)

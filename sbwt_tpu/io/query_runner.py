@@ -17,9 +17,9 @@ from ..utils.logging import write_log
 
 # Shape bucketing limits recompilation: batch dims are padded up to these.
 # The ceiling matters: dependent-gather throughput is latency-bound and
-# keeps climbing to millions of parallel lanes (docs/DESIGN.md §1), so
-# big query files are dispatched in up-to-1M-read device batches
-# (~128 MB of codes at 100 bp — HBM is the abundant resource).
+# climbs with the number of lanes in flight, so big query files are
+# dispatched in up-to-1M-read device batches (~128 MB of codes at 100 bp,
+# small next to device memory).
 _LEN_QUANTUM = 32
 _BATCH_SIZES = [256, 1024, 4096, 16384, 65536, 262144, 1048576]
 

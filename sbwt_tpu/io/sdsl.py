@@ -16,7 +16,7 @@ and documented in docs/SDSL_LAYOUT.md.  Each codec comes with:
   round-trippable.
 
 Everything here is host-side numpy; the loaded content is re-packed into
-the TPU-native device structures by io/serialize.py.
+the device structures by io/serialize.py.
 
 Byte-order/packing conventions (sdsl int_vector.hpp):
   * all integers little-endian;

@@ -8,7 +8,7 @@ Two formats:
   (globals.cpp:49-62), sdsl bit_vector framing (8-byte bit count +
   64-bit words), rank_support_v5 payloads (skipped and recomputed on
   load, which is what the sdsl structures allow — supports are rebindable,
-  SubsetMatrixRank.hh:108-114), raw int64 metadata.  This lets the TPU
+  SubsetMatrixRank.hh:108-114), raw int64 metadata.  This lets the
   framework load reference-built plain-matrix indexes directly.
 
 * **native** — a numpy container holding the variant's own compressed
@@ -401,7 +401,7 @@ def load_cpp_stream(f):
     """Load a reference-format index stream (all 10 variant tags,
     mirroring the dispatch at src/CLI/sbwt_search.cpp:204-253).  The
     compressed payloads are decoded back to plain bit rows and re-packed
-    into the TPU-native structure for the same variant."""
+    into the device structure for the same variant."""
     from ..models.sbwt import SBWT, VARIANT_NAMES
 
     with _section(f, "variant tag string"):

@@ -46,7 +46,7 @@ _jit_forward = jax.jit(engines.forward_batch)
 
 
 class SBWT:
-    """SBWT index with batched TPU query engines.
+    """SBWT index with batched device query engines.
 
     `variant` selects the subset-rank structure (variants.hh:19-63):
     plain-matrix uses the fused-row MatrixIndex; the other nine use the
@@ -214,10 +214,11 @@ class SBWT:
         precalc_k: int = 0,
         src_pad: int | None = None,
     ):
-        """Construct ON the TPU: the whole pipeline (window packing, colex
-        sort, dedup, out-edge joins, dummy emission, rank-table packing)
-        runs as one compiled XLA program (construct/device.py) — the
-        TPU-native replacement for the reference's KMC + EM-sort path.
+        """Construct ON the device: the whole pipeline (window packing,
+        colex sort, dedup, out-edge joins, dummy emission, rank-table
+        packing) runs as one compiled XLA program (construct/device.py) —
+        the device-native replacement for the reference's KMC + EM-sort
+        path.
         k <= 32; raises ValueError on pathologically fragmented inputs
         (source budget), where the host builder is the fallback.
 
@@ -398,10 +399,10 @@ class SBWT:
     def enable_turbo(
         self, arity: int | None = None, free_bytes: int | None = None
     ) -> int | None:
-        """Build the successor turbo table (ops/turbo.py): 128 B (arity 2)
-        or 1 KiB (arity 3) of HBM per column for ~4-6x the streaming
-        query throughput.  Exact same answers; used automatically by
-        streaming_search_batch.
+        """Build the successor turbo table (ops/turbo.py): 16 B (arity 1),
+        128 B (arity 2) or 1 KiB (arity 3) of device memory per column,
+        for fewer dependent gathers per streaming answer.  Exact same
+        answers; used automatically by streaming_search_batch.
 
         arity=None measures free device memory and picks the largest
         affordable tier, degrading 3 -> 2 -> 1 (16 B/column row tier) ->

@@ -1,6 +1,6 @@
 """Subset-rank structures: the L1 layer of the index, one per variant family.
 
-TPU-native equivalents of the reference's four structure families
+Device-native equivalents of the reference's four structure families
 (SURVEY.md §2.2), each a JAX pytree with batched device `rank(c, pos)`
 (count of character c in subsets 0..pos-1, SubsetMatrixRank.hh:30-37):
 
@@ -349,7 +349,7 @@ class ConcatRank:
         """Positions of the (i+1)-th AND (i+2)-th zeros of L from ONE
         sampled 64-bit window: sets hold <= 4 symbols, so zeros i..i+9
         from the every-8th sample span <= 36 bits — both answers always
-        sit inside the window, and the second binary search is pure VPU
+        sit inside the window, and the second binary search is pure elementwise
         (no extra gathers)."""
         s = self.samples[i >> 3]
         rem = (i & 7).astype(jnp.int32)

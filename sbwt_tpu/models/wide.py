@@ -1,11 +1,10 @@
 """64-bit SBWT index for pangenome-scale column counts (>= 2^31).
 
-The reference is int64 throughout (SBWT.hh:44-46); the TPU-native narrow
-engine (models/matrix.py) deliberately runs int32 for gather speed and
-hard-fails at 2^31 columns.  This module is the int64 path past that
-ceiling: positions, interval bounds, C and the precalc table are int64
-(XLA lowers s64 to 32-bit pairs on TPU — slower, but a >16-billion-bit
-matrix is HBM-bound anyway), while the rank table keeps the fused
+The reference is int64 throughout (SBWT.hh:44-46); the narrow engine
+(models/matrix.py) deliberately runs int32 lanes (half the bytes per
+lane of every gather index and answer) and hard-fails at 2^31 columns.
+This module is the int64 path past that ceiling: positions, interval
+bounds, C and the precalc table are int64, while the rank table keeps the fused
 one-gather layout by splitting each word's exclusive cumulative popcount
 into (low 32, high 32) halves in a contiguous int32 [., 3] row.
 

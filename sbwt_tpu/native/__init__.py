@@ -5,6 +5,11 @@ the reference's is (SeqIO reader, EM_sort, output formatting — SURVEY.md
 §2.3/§2.4).  The shared library is compiled once with the system g++/cc
 and cached next to the sources; every entry point has a pure-Python
 fallback so the framework works without a toolchain.
+
+The library is built for the generic target of the host architecture
+(no `-march=native`), so a copy that travels with the source tree to
+another machine of the same architecture still runs there instead of
+stopping on an illegal instruction.
 """
 from __future__ import annotations
 
@@ -25,14 +30,22 @@ _build_failed = False
 
 
 def _build() -> bool:
+    # compile to a private name and rename into place: processes that
+    # build at the same moment never load a half-written library
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     cmd = [
-        "cc", "-O3", "-march=native", "-shared", "-fPIC",
-        *_SRCS, "-o", _SO, "-lz", "-lpthread",
+        "cc", "-O3", "-shared", "-fPIC",
+        *_SRCS, "-o", tmp, "-lz", "-lpthread",
     ]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _SO)
         return True
-    except Exception:
+    except (OSError, subprocess.SubprocessError):
+        try:
+            os.remove(tmp)
+        except OSError:
+            pass
         return False
 
 

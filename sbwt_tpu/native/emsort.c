@@ -3,7 +3,7 @@
  * Native equivalent of the reference's EM_sort machinery
  * (src/EM_sort/EM_sort.cpp:49-212: single producer reads blocks, worker
  * threads sort and spill runs, then <=512-way file merges) specialized to
- * fixed 8-byte records — exactly what the TPU construction pipeline
+ * fixed 8-byte records — exactly what the construction pipeline
  * needs, since k-mers are packed into uint64 words whose plain integer
  * order IS colex order (utils/kmers.py; Kmer.hh:108-123).
  *

@@ -4,7 +4,7 @@
  * Host-side equivalent of the reference's SeqIO submodule reader
  * (seq_io::Reader::get_next_read_to_buffer, used at
  * src/CLI/sbwt_search.cpp:46-65) and of the manual itoa output writer
- * (print_vector, src/CLI/sbwt_search.cpp:21-43).  The TPU query path
+ * (print_vector, src/CLI/sbwt_search.cpp:21-43).  The device query path
  * consumes int8 code arrays; this reader produces them directly from the
  * byte stream so the Python layer never touches per-base data.
  *

@@ -1,4 +1,4 @@
-"""Packed bit vectors with word-fused rank support, TPU-native.
+"""Packed bit vectors with word-fused rank support, device-native.
 
 Replaces sdsl's `bit_vector` + `rank_support_v5` (the innermost primitive
 of the reference query path, see SubsetMatrixRank.hh:31-37): a bit vector
@@ -8,8 +8,8 @@ so a single 8-byte gather yields everything `rank(pos)` needs:
     rank(pos) = cum[pos >> 5] + popcount(word[pos >> 5] & ((1 << (pos & 31)) - 1))
 
 Interleaving (bits, cum) per word keeps each rank query to ONE gather of
-contiguous bytes — the design goal on TPU where random HBM gathers are the
-bottleneck, not popcounts (the VPU does those for free).
+contiguous bytes: random device-memory gathers are the bottleneck of the
+query loop, not popcounts.
 """
 from __future__ import annotations
 

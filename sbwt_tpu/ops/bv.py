@@ -1,7 +1,7 @@
 """Device-resident bit vectors with rank: plain, RRR-compressed, modified
 Elias-Fano.
 
-TPU-native equivalents of the reference's three bit-vector families
+Device-native equivalents of the reference's three bit-vector families
 (variants.hh:19-63):
 
 * `PlainBV`    — sdsl::bit_vector + rank_support_v5: interleaved
@@ -11,13 +11,11 @@ TPU-native equivalents of the reference's three bit-vector families
   reference's rrr_* variants, variants.hh:20,27,59): blocks stored as
   (class = popcount, offset = rank among same-class patterns).  Blocks
   are 15 bits here instead of sdsl's 63 so the offset->pattern map is a
-  2^15-entry LUT (128 KB, fast-gather tier): rank = one 16-byte meta
-  row gather + two offset-stream word gathers + one pattern-LUT gather
-  + a VPU popcount.  Round 3's 63-bit blocks needed a 63-iteration
-  sequential combinatorial unrank per query (126 dependent binom
-  gathers) and measured 247K q/s end-to-end — three orders below the
-  headline; the LUT decode trades ~17% extra class overhead for a
-  table-driven decode.  Still the slow-but-small tier, as in the
+  2^15-entry LUT (128 KB): rank = one 16-byte meta row gather + two
+  offset-stream word gathers + one pattern-LUT gather + a popcount.
+  63-bit blocks would need a 63-iteration sequential combinatorial
+  unrank per query (126 dependent binom gathers); the LUT decode trades
+  ~17% extra class overhead for a table-driven decode.  Still the slow-but-small tier, as in the
   reference.  The sdsl rrr_vector<63> DISK layout is unaffected
   (io/sdsl.py has an independent codec).
 * `MEFBV`      — sbwt::mod_ef_vector (MEF.hpp:85-131,376-389): buckets of
@@ -188,7 +186,7 @@ def _split64(v: np.ndarray):
 
 
 # offset widths packed as nibbles into two uint32 constants (classes 0..7
-# in _W15LO, 8..15 in _W15HI): width lookup is pure VPU shift/mask
+# in _W15LO, 8..15 in _W15HI): width lookup is pure shift/mask
 _W15LO = np.uint32(sum(int(_WIDTH15[c]) << (4 * c) for c in range(8)))
 _W15HI = np.uint32(sum(int(_WIDTH15[c]) << (4 * (c - 8)) for c in range(8, 16)))
 
@@ -212,7 +210,7 @@ class RRRBV:
     (cum rank, offset bit ptr, 2 words of 16x4-bit packed classes), a
     packed variable-width offset stream (offsets <= 13 bits), and the
     shared 2^15-entry offset->pattern LUT.  rank(pos) = meta row gather
-    + 2 offset-word gathers + 1 LUT gather + VPU popcount."""
+    + 2 offset-word gathers + 1 LUT gather + popcount."""
 
     meta: jax.Array  # int32 [n_sb, 4]
     offs: jax.Array  # int32 [n_off_words] packed offset stream
@@ -293,7 +291,7 @@ class RRRBV:
         optr = row[..., 1]
         w0c = row[..., 2].astype(jnp.uint32)
         w1c = row[..., 3].astype(jnp.uint32)
-        # unpack 16 4-bit classes: pure VPU shifts, no gathers
+        # unpack 16 4-bit classes: pure shifts, no gathers
         six = jnp.stack(
             [(w0c >> np.uint32(4 * t)) & np.uint32(15) for t in range(8)]
             + [(w1c >> np.uint32(4 * t)) & np.uint32(15) for t in range(8)],

@@ -2,8 +2,8 @@
 
 The exact-output fast path for the reference's headline workload
 (`sbwt search` streaming over reads, src/CLI/sbwt_search.cpp:46-65),
-trading HBM for gather count — the TPU query bottleneck is dependent
-random gathers, so answers-per-gather is the whole game:
+trading device memory for gather count — the query loop is a chain of
+dependent random gathers, so answers-per-gather is the whole game:
 
 * Arity 2/3: ``tbl`` int32 [n*4^A, A(+pad)]: entry
   col*4^A + c_1*4^(A-1) + ... + c_A holds the successor columns after
@@ -11,16 +11,13 @@ random gathers, so answers-per-gather is the whole game:
   with -1 propagation baked in.  One 8-byte (A=2) or 16-byte (A=3)
   gather advances a read A k-mer positions: 1/A gathers/answer on the
   streaming chain, vs 2 rank gathers/answer for the LF engine.
-  HBM cost: 128 B/column (A=2) or 1 KiB/column (A=3).
+  Memory cost: 128 B/column (A=2) or 1 KiB/column (A=3).
 
 * Arity 1 ("uni" tier): ``tbl`` int32 [n, 4]: ROW per column holding its
   4 successors; the chain gathers one 16-byte row per step and selects
-  by the read character on the VPU.  1 gather/answer — but measured row
-  gathers run ~1.4x faster than scalar gathers (153M vs 111M rows/s at
-  4M lanes from a <=128 MB table, scratch/uni_proto.py), so the chain
-  still sustains >150M answers/s while costing only 16 B/column — the
-  tier that holds the >=100M q/s target on indexes where the arity-2/3
-  tables cannot fit (pangenome scale: 1G columns = 16 GB).
+  by the read character with elementwise selects.  1 gather/answer at
+  only 16 B/column — the tier for indexes where the arity-2/3 tables
+  cannot fit (pangenome scale: 1G columns = 16 GB).
 
 * First k-mers and post-mismatch restarts use the **singleton seed**
   path: with precalc_k >= log4(n) the precalc interval of a k-mer's
@@ -35,9 +32,8 @@ random gathers, so answers-per-gather is the whole game:
 Output is bit-identical to SBWT::streaming_search / search (the
 contract of SBWT.hh:231), verified differentially in tests.
 
-Cost model (k=30, p=12, 100bp reads, A=3): ~31 gathers per 71 answers
-= 0.44 gathers/answer -> >100M answers/s/chip at the measured
-~90M dependent gathers/s.
+Gather count (k=30, p=12, 100bp reads, A=3): ~31 gathers per 71 answers
+= 0.44 gathers/answer.  Its rate on the H100 is not measured yet.
 """
 from __future__ import annotations
 
@@ -48,6 +44,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax import lax
+
+from ..utils.memory import win2_side_table_fits
 
 # Transient marker for restart positions whose precalc seed is a
 # non-singleton interval: the patch pass writes it in place of an answer
@@ -61,10 +59,10 @@ SLOW_SENTINEL = -2
 # walked only for the tiny survivor set, pooled across all patch trips.
 WALK_CONT = -3
 # Block-sweep resolver chunk width cap (lanes per trip).  Dependent-gather
-# throughput climbs with occupancy to ~8M lanes (docs/DESIGN.md §1), so
-# miss-heavy sweeps with tens of millions of live positions want wide
-# trips; the cap bounds the per-trip transients ([Wc, 3] windows, seed
-# rows, step rows — ~60 B/lane).
+# throughput climbs with the number of lanes in flight, so miss-heavy
+# sweeps with tens of millions of live positions want wide trips; the cap
+# bounds the per-trip transients ([Wc, 3] windows, seed rows, step rows
+# — ~60 B/lane).
 _SWEEP_CHUNK_CAP = 1 << 21
 
 
@@ -88,8 +86,7 @@ class TurboIndex:
     # (m >> 2).  Because consecutive read positions' p-mers are exactly
     # that shift pair, ONE gather from this table kills/keeps TWO restart
     # positions (~94% of random positions die here at p=13, never touching
-    # the 537 MB precalc table).  4^(p+1)/4 bytes = 67 MB at p=13 — still
-    # inside the <=128 MB fast-gather tier (docs/DESIGN.md §4a).
+    # the 537 MB precalc table).  4^(p+1)/4 bytes = 67 MB at p=13.
     seed_bits: jax.Array | None = None
 
     @property
@@ -106,7 +103,7 @@ class TurboIndex:
     pos_dtype = jnp.int32
 
     def succ_from_row(self, row, c, alive):
-        """Successor selected from an arity-1 row by char c (VPU select)."""
+        """Successor selected from an arity-1 row by char c (elementwise select)."""
         s01 = jnp.where(c == 0, row[..., 0], row[..., 1])
         s23 = jnp.where(c == 2, row[..., 2], row[..., 3])
         s = jnp.where(c <= 1, s01, s23)
@@ -137,20 +134,16 @@ class WideTurboIndex:
     throughout and flat in n, SBWT.hh:44-46).
 
     Successor columns are int64 stored as TWO [n, 4] int32 row tables
-    (lo words and hi words).  On a single chip (n < 2^31, always true
-    for an in-HBM table) every hi word is identically 0 (live) or -1
-    (dead), so the chain gathers ONLY the lo table — one 16-byte row
-    per answer at the narrow tier's rate; the hi table is touched only
-    by the n >= 2^31 pair path kept for sharded views.  The round-4
-    interleaved [n, 8] row measured 52.5M rows/s vs 153.3M for 16-byte
-    rows, and even a lo+hi double gather only 51.7M pairs/s
-    (scratch/r5_probe7/9.log) — 32-byte rows fall off the single-
-    transaction gather path.  Still 32 B/column total: a 2^31-column
-    table needs 68.7 GB, so single-chip wide-turbo serves the sub-2^31
-    range the wide engine can be forced onto, and past that the table
-    must be row-sharded over a mesh (parallel/sharded.py; per-shard
-    rebasing keeps shard-local int32 viable to 2^31 columns per
-    shard)."""
+    (lo words and hi words).  On a single device (n < 2^31, always true
+    for a table one device holds) every hi word is identically 0 (live)
+    or -1 (dead), so the chain gathers ONLY the lo table — one 16-byte
+    row per answer like the narrow tier; the hi table is touched only
+    by the n >= 2^31 pair path kept for sharded views.  Still 32 B/column
+    total: a 2^31-column table needs 68.7 GB, so single-device wide-turbo
+    serves the sub-2^31 range the wide engine can be forced onto, and
+    past that the table must be row-sharded over a mesh
+    (parallel/sharded.py; per-shard rebasing keeps shard-local int32
+    viable to 2^31 columns per shard)."""
 
     tbl: jax.Array  # int32 [n, 4] successor lo words (char-major)
     tbl_hi: jax.Array  # int32 [n, 4] successor hi words
@@ -166,13 +159,10 @@ class WideTurboIndex:
 
     def tbl_row(self, idx):
         if self.n_nodes < 2**31:
-            # Any single-chip table physically has < 2^31 rows, so every
+            # Any single-device table physically has < 2^31 rows, so every
             # successor's hi word is identically 0 (live) or -1 (dead) —
             # the lo word alone decides, and the chain costs ONE 16-byte
-            # row gather like the narrow tier (the paired lo+hi double
-            # gather measured 51.7M rows/s vs 142M for one,
-            # scratch/r5_probe9.log).  s64 gather indices are fine
-            # (142.4 vs 152.9M rows/s) but the cast is free anyway.
+            # row gather like the narrow tier.
             return self.tbl[idx.astype(jnp.int32)]
         # n >= 2^31 (only reachable through sharded views that rebase
         # per-shard; kept for completeness): full (lo, hi) pair rows
@@ -220,7 +210,7 @@ def build_turbo_wide(index, chunk: int = 1 << 22) -> WideTurboIndex:
             his.append((succ >> 32).astype(jnp.int32))
         return jnp.stack(los, axis=-1), jnp.stack(his, axis=-1)  # [m, 4] x2
 
-    # one jitted fori_loop fill: the carry aliases in place, so peak HBM
+    # one jitted fori_loop fill: the carry aliases in place, so peak memory
     # is the final tables + one chunk part (an eager per-chunk
     # dynamic_update_slice copies the whole table every chunk)
     @partial(jax.jit, static_argnames=("n_chunks", "m"))
@@ -341,7 +331,7 @@ def _triple_chunk(succ, start, chunk):
 @partial(jax.jit, static_argnames=("n_chunks", "chunk", "arity"))
 def _build_tbl_jit(succ_p, n_chunks, chunk, arity):
     """Chunked table build into a preallocated buffer: the fori_loop
-    carry aliases in place, so peak HBM is the final table plus ONE
+    carry aliases in place, so peak memory is the final table plus ONE
     chunk part (a concatenate of all parts would transiently double
     the multi-GB arity-3 table)."""
     fn = _pair_chunk.__wrapped__ if arity == 2 else _triple_chunk.__wrapped__
@@ -392,9 +382,9 @@ def build_turbo(index, arity: int = 2) -> TurboIndex:
     reference's small-index-slow-query trade (sbwt_search.cpp:204-253
     runs all variants through the same LF loop).
 
-    arity 1: 16 B HBM per column ([n, 4] successor rows).  arity 2:
-    128 B per column.  arity 3: 1 KiB per column, ~1.5x fewer chain
-    gathers — for indexes where HBM allows."""
+    arity 1: 16 B device memory per column ([n, 4] successor rows).
+    arity 2: 128 B per column.  arity 3: 1 KiB per column, ~1.5x fewer
+    chain gathers — for indexes where device memory allows."""
     if not index.has_streaming:
         raise ValueError("turbo engine requires streaming support (suffix group marks)")
     if index.precalc_k <= 0:
@@ -442,7 +432,7 @@ def _step(turbo, col, cs, vs):
     Dead lanes (col < 0) stay dead; -1 propagates."""
     A = turbo.arity
     if A == 1:
-        # successor-row layout: one row gather + VPU select by char
+        # successor-row layout: one row gather + elementwise select by char
         # (narrow [n, 4] int32; wide [n, 8] (lo, hi) int32 pairs)
         row = turbo.tbl_row(jnp.clip(col, 0))
         c = cs[0] & 3
@@ -519,7 +509,7 @@ def fast_search(turbo: TurboIndex, codes):
 
 def _pidx_vwin(turbo, rows, P):
     """Precalc table indices and window validity for every k-mer position
-    of the code rows [C, L] — pure VPU math, no gathers.
+    of the code rows [C, L] — elementwise math only, no gathers.
 
     Returns (pidx, vwin): int32 [C, P] and all-chars-valid mask."""
     k, p = turbo.k, turbo.precalc_k
@@ -538,7 +528,7 @@ def _pidx_vwin(turbo, rows, P):
 
 def _seed_all_positions(turbo, rows, P):
     """Precalc seeds and window validity for every k-mer position of the
-    given code rows [C, L] (VPU math + one seed gather per position).
+    given code rows [C, L] (elementwise math + one seed gather per position).
 
     Returns (l, r, vwin): seed intervals [C, P] and all-chars-valid mask."""
     pidx, vwin = _pidx_vwin(turbo, rows, P)
@@ -586,14 +576,14 @@ def _dispatch(pred, branch_true, branch_false, x, hint_true):
     """Regime dispatch: static when the caller knows the regime, lax.cond
     otherwise.
 
-    lax.cond compiles the gathers inside its branches ~1.6x slower on
-    this backend (2372 vs 1464 ms for the same full-width bitmap
-    classification, scratch/r4_probe11.log).  A 0/1-trip fori pair was
-    tried instead and is WORSE: XLA hoists the unchosen branch's
-    loop-invariant work (the whole classification) out of the 0-trip
-    loop, executing it unconditionally (r4_probe5e).  So the auto path
-    accepts the cond penalty, and hot benchmarked paths pass a static
-    regime_hint that removes the data-dependent branch entirely."""
+    A static regime_hint removes the data-dependent branch entirely (the
+    hinted programs are bit-identical to the cond program,
+    tests/test_turbo_branches.py).  The hints exist because lax.cond
+    slowed the gathers inside its branches on the accelerator this engine
+    was first tuned on; whether that holds on the H100 is not measured
+    yet.  A 0/1-trip fori pair is not an alternative: XLA hoists the
+    unchosen branch's loop-invariant work out of the 0-trip loop and
+    executes it unconditionally."""
     if hint_true is True:
         return branch_true(x)
     if hint_true is False:
@@ -625,22 +615,22 @@ def turbo_streaming_search(
     position.  `index` is the base device index, used only for the rare
     exact-LF fallback lanes (non-singleton precalc seeds).
 
-    Every phase is REGIME-ADAPTIVE (round 4): the position-0 walk, the
+    Every phase is REGIME-ADAPTIVE: the position-0 walk, the
     extension chain and the seed-bitmap classification each pick between
     a full-width lockstep program (right when most lanes participate —
     the hit-heavy regime) and a compacted count-adaptive program (right
     when few do — the miss-heavy regime) with a `lax.cond` on the actual
     counts; both branches compile once, one executes.  The reference's
     cost per answer DROPS on misses (a restart usually dies at the
-    precalc seed, SBWT.hh:557-559); this structure gives the TPU engine
-    the same property instead of paying full-width chain gathers on
+    precalc seed, SBWT.hh:557-559); this structure gives the device
+    engine the same property instead of paying full-width chain gathers on
     all-dead lanes.
 
     Restart resolution is POOLED GLOBALLY (not per lane-chunk): the
     classification stages only mark live restart positions with a
     transient sentinel, and single wide passes over the whole batch
-    resolve them — narrow per-trip fallback loops at low gather
-    occupancy were the round-3 miss-regime floor.
+    resolve them — narrow per-trip fallback loops run at low gather
+    occupancy.
     """
     from .search import compact_indices, search_batch
 
@@ -661,7 +651,7 @@ def turbo_streaming_search(
     dt = getattr(turbo, "pos_dtype", jnp.int32)  # int64 for the wide tier
     # codes stay in their input dtype (int8 from the readers) end-to-end;
     # per-step slices are cast on the fly — at multi-million-read batches
-    # an up-front int32 copy of the whole batch costs GBs of HBM.
+    # an up-front int32 copy of the whole batch costs GBs of device memory.
 
     # ---- position 0: singleton-seed search on every lane ---------------
     # (inlined fast_search so the seed intervals are available for the
@@ -686,7 +676,7 @@ def turbo_streaming_search(
     # (maximum gather occupancy), compacted trips when the batch is
     # miss-heavy and ~94% of lanes died at the seed
     walkable0 = ~dead0 & ~slow0
-    # counts for the cond predicates come from cheap VPU reductions; the
+    # counts for the cond predicates come from cheap reductions; the
     # compacted work lists (a [B]-sized scatter each) are built only
     # inside the branch that needs them
     n_walk0 = _sync(jnp.sum(walkable0.astype(jnp.int32)))
@@ -750,9 +740,8 @@ def turbo_streaming_search(
     # Full-width scan while most lanes are alive at position 0; compacted
     # per-lane chunks otherwise — a dead lane's chain answers are all -1
     # by construction (dead stays dead), so at hit rate ~0 the full-width
-    # scan would burn (P-1)/A gathers per lane proving nothing.  Row
-    # scatters of [C, P] chain results run at GB/s (not the scalar-
-    # scatter rate), measured scratch/r4_probe2.py R1.
+    # scan would burn (P-1)/A gathers per lane proving nothing.  Chain
+    # results go back as whole [C, P] row scatters, not scalar scatters.
     if P > 1:
         n_steps = -(-(P - 1) // A)
         pad_cols = n_steps * A - (P - 1)
@@ -825,15 +814,14 @@ def turbo_streaming_search(
     # Chars walked inline per live restart before pooling survivors: at
     # least 3 regardless of arity — each char kills ~3/4 of random
     # walkers, so 3 chars leave ~1.6% for the pend stage.  At arity 1
-    # min(A, rem) = 1 left 25% of walkable restarts for the pend pass,
-    # whose LOCKSTEP rem2-char walk then dominated the whole mid/miss
-    # regime (turbo1_hit50 pend delta: 2245 ms vs ~150 ms expected,
-    # scratch/r5_probe6.log) — the round-4 turbo1 regime inversion.
+    # min(A, rem) = 1 would leave 25% of walkable restarts for the pend
+    # pass, whose LOCKSTEP rem2-char walk would then dominate the whole
+    # mid/miss regime.
     take0 = min(max(A, 3), rem) if rem > 0 else 0
     rem2 = rem - take0  # chars left for the pooled continue-walk stage
     Cn = _clamp_pow2(B // 16, 8192, 1 << 19) if chunk_lanes is None else min(chunk_lanes, B)
     Cn = min(Cn, B)
-    # expected live fractions (docs/DESIGN.md: p >= 13 keeps non-singleton
+    # expected live fractions (p >= 13 keeps non-singleton
     # seeds ~0.2% and live singletons ~6% of random-read positions) size
     # the fallback chunks: small enough that the pad is cheap, big enough
     # that one trip normally suffices
@@ -921,7 +909,7 @@ def turbo_streaming_search(
 
     def _nth_set_bit64(mlo, mhi, j):
         """Position (0..63) of the (j+1)-th set bit of the 64-bit mask
-        (mlo, mhi) uint32 pair — pure VPU binary search on popcounts."""
+        (mlo, mhi) uint32 pair — branch-free binary search on popcounts."""
         clo = lax.population_count(mlo).astype(jnp.int32)
         hi_side = j >= clo
         m = jnp.where(hi_side, mhi, mlo)
@@ -945,12 +933,11 @@ def turbo_streaming_search(
         whose length comes from a count histogram known up front.  All
         (level, block) work items flatten into one count-exact sequence
         processed in full-occupancy chunks — no per-position worklist
-        (a flat compact_indices over B*P measured 2.8 s/batch,
-        scratch/r4_probe4.log), no per-level compactions, and no padded
-        per-level trips.  Slot -> (level, block) decoding is pure VPU
-        broadcast-compare against the 64-entry offset table: tiny-table
-        jnp.searchsorted/take lower to DEPENDENT gathers that pay full
-        gather latency per lane (~2.5 s/batch at hit0, r4_probe5).
+        (a flat compact_indices over all B*P positions), no per-level
+        compactions, and no padded per-level trips.  Slot -> (level,
+        block) decoding is an elementwise broadcast-compare against the
+        64-entry offset table: tiny-table jnp.searchsorted/take lower to
+        DEPENDENT gathers that pay full gather latency per lane.
         Each live position is visited exactly once."""
         D64 = -(-D_ // 64) * 64
         lv = live_flat
@@ -1079,8 +1066,8 @@ def turbo_streaming_search(
             positions have non-singleton seeds at p=13), so pend LANES are
             compacted first and the block sweeps run over the compacted
             lane-chunk domain — sweeping the full [B*P] domain for a few
-            hundred K pend positions paid several full-width liveness
-            packings (~0.3 s/batch at hit0, scratch/r5_probe1.log).
+            hundred K pend positions would pay several full-width
+            liveness packings.
 
             w3_global (the miss branch's k<=32 side table accessor) lets
             the resolvers fetch a position's window with one 8-byte row
@@ -1193,9 +1180,8 @@ def turbo_streaming_search(
             the WHOLE batch full-width (no lane gathers, no row scatters)
             and run ONE global block sweep over [B*P].  Resolvers
             re-derive a position's window (seed index + walk chars) from
-            a packed 2-bit code-word array with one fast-zone 3-word
-            gather — a global (pidx, chars) side table would be 3.6 GB
-            of slow-zone rows."""
+            a packed 2-bit code-word array with one 3-word gather — a
+            global (pidx, chars) side table would be 3.6 GB of rows."""
             rows = codes.astype(jnp.int32)
             pidx, vwin = _pidx_vwin(turbo, rows, P)
             Pe = (P + 1) // 2
@@ -1212,17 +1198,12 @@ def turbo_streaming_search(
 
             # k <= 32: a position's whole window (p-mer index + rem walk
             # chars = 2k bits) fits ONE 8-byte row, so a [B*P, 2] side
-            # table turns the resolver's THREE scalar word gathers
-            # (~26.5 ns at the fast-zone rate) into ONE row gather
-            # (~14 ns slow-zone) — hit0 sweep: 3364 -> 2941 ms
-            # (scratch/r5_probe5.log).  8 B/position caps the domain:
-            # past ~350M positions (~200M for the int64 engine, whose
-            # answer arrays already double) the table + its transients
-            # OOM a 16 GB chip, and the packed-words path below serves.
-            # (Round 4 rejected a 12-byte [., 3] variant as 3.6 GB; the
-            # 2-word form only exists for k <= 32.)
-            win2_cap = 200_000_000 if dt == jnp.int64 else 350_000_000
-            if 2 * k <= 64 and B * P <= win2_cap:
+            # table turns the resolver's three scalar word gathers into
+            # one row gather.  The table and its transients cost
+            # utils/memory.WIN2_BYTES_PER_POSITION per position; past
+            # what measured free memory allows, the packed-words path
+            # below serves.
+            if 2 * k <= 64 and win2_side_table_fits(B * P, wide=dt == jnp.int64):
                 pwv = _pack_rem(rows, P, k, p)  # [B, P, 2] uint32
                 sp_ = np.uint32(2 * p)
                 inv_ = np.uint32(32) - sp_
@@ -1261,16 +1242,14 @@ def turbo_streaming_search(
             # packed 2-bit code words per lane.  A window ending at the
             # last position needs words up to (2L-1)//32 <= NWq-1, so no
             # pad is needed unless P-1's base word + 2 would pass the
-            # row end; keeping NW minimal keeps the array inside the
-            # <=128 MB fast-gather tier (the +2-pad version was 151 MB at
-            # 4M lanes — just past the cliff, scratch/r4_probe7.log)
+            # row end; NW is kept minimal to keep the gathered array small
             NWq = (L + 15) // 16
             # a window of k chars starting at bit offset <= 30 within its
             # base word spans ceil((2k + 30) / 32) words: 3 words only
             # cover k <= 33, so longer windows gather a 4th (k <= p + 32
             # <= 46 here, and 4 words cover k <= 49) — without it every
-            # window char past offset 31 read as 'A' and miss-heavy
-            # batches returned wrong answers for k > 33 (round-4 bug)
+            # window char past offset 31 would read as 'A' and miss-heavy
+            # batches would return wrong answers for k > 33
             need4 = 2 * k + 30 > 96
             NW = max(NWq, ((P - 1) >> 4) + (4 if need4 else 3))
             wcols = []
@@ -1291,9 +1270,8 @@ def turbo_streaming_search(
 
             def w3_at(fp):
                 """(pidx, packed rem lo, hi) of flat position fp: three
-                scalar word gathers + VPU funnel shifts (a base+span
-                [., 3] gather lowers to a ~4x slower per-element path,
-                scratch/r4_probe7.log C1 vs probe6 M3)."""
+                scalar word gathers + funnel shifts (a base+span [., 3]
+                gather lowers to a per-element path)."""
                 lane = fp // P
                 pos = fp % P
                 wi = lane * NW + (pos >> 4)
@@ -1391,9 +1369,9 @@ class AdaptiveTurboEngine:
 
     The reference's query loop needs no workload declaration — misses are
     simply the cheap case of the same loop (SBWT.hh:557-559,
-    src/CLI/sbwt_search.cpp:46-91).  The TPU engine's equivalent property
-    comes from ADAPTIVE hinting instead of lax.cond dispatch (which
-    dilutes branch gathers ~1.6x on this backend, docs/DESIGN.md §4a):
+    src/CLI/sbwt_search.cpp:46-91).  The device engine's equivalent
+    property comes from ADAPTIVE hinting instead of lax.cond dispatch
+    (see _dispatch):
 
     * every batch's hit count comes back as a free by-product of the
       answer reduction, and picks the static regime hint for the NEXT

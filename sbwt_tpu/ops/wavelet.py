@@ -1,7 +1,7 @@
 """Balanced wavelet tree over a small alphabet, generic over the bit-vector
 class (plain / rrr / mef from ops/bv.py).
 
-TPU-native equivalent of sdsl::wt_blcd as used by the reference's split,
+Device-native equivalent of sdsl::wt_blcd as used by the reference's split,
 concat, and subset-WT structures (SubsetSplitRank.hh:17-21,
 SubsetConcatRank.hh:36-41, SubsetWT.hh:87-90): the alphabet {0..sigma-1}
 is split recursively in halves.  All nodes of one depth are concatenated

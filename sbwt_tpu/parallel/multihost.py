@@ -7,9 +7,9 @@ runtime mode: `jax.distributed` brings every host's chips into one global
 mesh, each host reads only its slice of the query files, the global
 batch is assembled from process-local shards without any host ever
 holding the full input, and the per-read answers come back as
-process-local shards for each host to write.  Collectives ride ICI
-within a slice and DCN across slices — placement is configuration (the
-mesh + PartitionSpecs), not communication code.
+process-local shards for each host to write.  XLA hands the collectives
+to the backend's transport (NCCL between GPUs) — placement is
+configuration (the mesh + PartitionSpecs), not communication code.
 
 Typical flow on each host::
 
@@ -48,7 +48,7 @@ def init_multihost(
         return
     try:
         # Cross-process collectives on CPU hosts need the gloo transport
-        # (TPU pods use ICI/DCN automatically; this is a no-op there).
+        # (GPU backends use NCCL; this setting only affects the CPU).
         jax.config.update("jax_cpu_collectives_implementation", "gloo")
     except Exception:
         pass

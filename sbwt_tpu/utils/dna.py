@@ -1,6 +1,6 @@
 """DNA alphabet encoding utilities.
 
-TPU-native equivalent of the reference lookup tables in
+Device-native equivalent of the reference lookup tables in
 include/sbwt/globals.hh:19-53 (ACGT<->0123 and reverse-complement tables).
 Everything here is vectorized numpy; the device side only ever sees int8
 code arrays produced by these functions.

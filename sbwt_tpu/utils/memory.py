@@ -1,10 +1,10 @@
 """Device memory headroom probes for capacity-aware engine selection.
 
-The turbo successor tables (ops/turbo.py) cost 128 B (arity 2) or 1 KiB
-(arity 3) of HBM per column; auto mode must degrade 3 -> 2 -> LF based on
-*measured* free memory instead of OOM-killing the CLI (the reference
-never OOMs here because it has no such table — graceful degradation is
-the parity-preserving behavior)."""
+The turbo successor tables (ops/turbo.py) cost 16 B (arity 1), 128 B
+(arity 2) or 1 KiB (arity 3) of device memory per column; auto mode must
+degrade 3 -> 2 -> 1 -> LF based on *measured* free memory instead of
+OOM-killing the CLI (the reference never OOMs here because it has no such
+table — graceful degradation is the parity-preserving behavior)."""
 from __future__ import annotations
 
 import os
@@ -15,31 +15,53 @@ import jax
 # more than this fraction of free memory with the turbo table
 HEADROOM_FRACTION = 0.5
 
+# The k <= 32 window side table of the turbo block sweep (ops/turbo.py)
+# holds 8 B per query position; with its build transients (the packed
+# remainder words and the two shifted word planes) and the answer arrays
+# it keeps alive, a position costs about this many bytes while the sweep
+# runs.  The int64 engine's answer arrays are twice as wide.
+WIN2_BYTES_PER_POSITION = 32
+WIN2_BYTES_PER_POSITION_WIDE = 48
 
-def device_free_bytes(device=None) -> int | None:
-    """Free memory of a device, or None when it cannot be measured.
 
-    TPU/GPU backends report allocator stats via memory_stats(); the CPU
-    backend allocates from host RAM, measured via sysconf."""
+def device_free_bytes(device=None) -> int:
+    """Free memory of a device in bytes.
+
+    GPU backends report their allocator's pool via memory_stats()
+    (`bytes_limit` is the pool JAX reserved, not the card's total); the
+    CPU backend allocates from host RAM, measured via sysconf.  A device
+    that reports neither is an error: guessing a size would hide the
+    device from the capacity planning that depends on it."""
     d = device or jax.devices()[0]
     try:
         stats = d.memory_stats()
-    except Exception:
+    except (RuntimeError, NotImplementedError):
         stats = None
     if stats and "bytes_limit" in stats:
         return int(stats["bytes_limit"]) - int(stats.get("bytes_in_use", 0))
     if d.platform == "cpu":
-        try:
-            return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
-        except (ValueError, OSError):
-            return None
-    return None
+        return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    raise RuntimeError(
+        f"cannot measure free memory of device {d} (platform {d.platform!r}): "
+        "memory_stats() reports no bytes_limit"
+    )
+
+
+def win2_side_table_fits(n_positions: int, wide: bool = False, free_bytes: int | None = None) -> bool:
+    """Whether the turbo sweep's k <= 32 window side table for
+    `n_positions` query positions fits in HEADROOM_FRACTION of free
+    device memory; otherwise the packed-words path (no side table)
+    serves the batch."""
+    if free_bytes is None:
+        free_bytes = device_free_bytes()
+    per = WIN2_BYTES_PER_POSITION_WIDE if wide else WIN2_BYTES_PER_POSITION
+    return n_positions * per <= int(free_bytes * HEADROOM_FRACTION)
 
 
 def turbo_table_bytes(
     n_nodes: int, arity: int, precalc_k: int = 0, wide: bool = False
 ) -> int:
-    """HBM cost of the turbo engine's device tables (ops/turbo.py):
+    """Device-memory cost of the turbo engine's tables (ops/turbo.py):
     the successor table (arity 1 = int32 [n, 4] rows, 16 B/col;
     arity 2/3 = int32 [n * 4^arity, width] with width 2 or 4) plus the
     seed-liveness pair bitmap (2 bits per (p+1)-mer, built whenever
@@ -65,26 +87,14 @@ def select_turbo_arity(
     """Largest affordable turbo arity (3, 2, 1) or None for the LF engine.
 
     free_bytes defaults to the measured free memory of the default device;
-    the table may take at most HEADROOM_FRACTION of it.  The arity-1 row
-    tier costs only 16 B/column and still sustains >=100M answers/s, so
-    the LF fallback is reached only past ~1G columns on a 16 GB chip."""
+    the table may take at most HEADROOM_FRACTION of it."""
     if free_bytes is None:
         free_bytes = device_free_bytes()
+    budget = int(free_bytes * HEADROOM_FRACTION)
     if wide:
         # the wide engine's only tier is the arity-1 [n, 8] pair-row
         # table (32 B/col); account for IT, not the narrow 16 B rows
-        if free_bytes is None:
-            return 1 if n_nodes <= 200_000_000 else None
-        budget = int(free_bytes * HEADROOM_FRACTION)
         return 1 if turbo_table_bytes(n_nodes, 1, precalc_k, wide=True) <= budget else None
-    if free_bytes is None:
-        # unmeasurable: conservative legacy thresholds (2 GB pair table)
-        if n_nodes <= 6_000_000:
-            return 3
-        if n_nodes <= 16_000_000:
-            return 2
-        return 1 if n_nodes <= 400_000_000 else None
-    budget = int(free_bytes * HEADROOM_FRACTION)
     for arity in (3, 2, 1):
         if arity >= 2 and n_nodes * (4**arity) >= 2**31:
             continue  # flat row index would overflow int32 (ops/turbo.py)

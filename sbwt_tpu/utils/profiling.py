@@ -3,7 +3,7 @@
 The reference's observability is timestamped stderr logging plus
 microsecond timers around the query loop reporting us/query with and
 without I/O (src/CLI/sbwt_search.cpp:48-63, 255-256; include/sbwt/
-globals.hh:83-112 Progress_printer).  The TPU-native equivalents here:
+globals.hh:83-112 Progress_printer).  The equivalents here:
 
 * ``trace(dir)`` — context manager around jax.profiler.trace; the dumped
   trace opens in TensorBoard / Perfetto and shows per-op device time for

@@ -19,6 +19,8 @@ from sbwt_tpu.io import serialize as ser
 from sbwt_tpu.models.sbwt import SBWT, VARIANT_NAMES
 from sbwt_tpu.utils.dna import encode_query
 
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 SIZES = [0, 1, 63, 64, 65, 383, 384, 385, 511, 512, 513, 2047, 2048, 2049, 5000]
 
 
@@ -436,7 +438,7 @@ def test_cpp_roundtrip_wide_scale(tmp_path):
     import sys
 
     env = dict(os.environ)
-    env["PYTHONPATH"] = "/root/repo"
+    env["PYTHONPATH"] = _ROOT
     env["JAX_PLATFORMS"] = "cpu"
     env.pop("XLA_FLAGS", None)
     out = str(tmp_path / "wide.sbwt")

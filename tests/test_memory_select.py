@@ -17,9 +17,9 @@ def test_turbo_table_cost_model():
 
 
 def test_select_turbo_arity_tiers():
-    # 100M columns (the VERDICT's big-index scenario): arity 3's flat row
+    # 100M columns (a big-index scenario): arity 3's flat row
     # index n * 64 overflows int32 past 2^25 columns, so the ladder must
-    # skip it here NO MATTER how much HBM is free (ops/turbo.py
+    # skip it here NO MATTER how much device memory is free (ops/turbo.py
     # check_turbo_index_range); arity 2 (1.6e9 rows < 2^31) needs 12.8 GB
     n = 100_000_000
     assert select_turbo_arity(n, free_bytes=300 << 30) == 2

@@ -19,6 +19,8 @@ from sbwt_tpu.models.sbwt import SBWT
 from sbwt_tpu.io.serialize import save
 from sbwt_tpu.utils.dna import encode_query
 
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 K = 9
 SEQ = (
     "CCCGTGATGGCTAGCTAGCTGATCGATCGTACGTACGTAGCTAGCATCGGATTACAGT"
@@ -67,7 +69,7 @@ def test_two_process_distributed_search(tmp_path):
 
     port = _free_port()
     env = dict(os.environ)
-    env["PYTHONPATH"] = "/root/repo"
+    env["PYTHONPATH"] = _ROOT
     env.pop("XLA_FLAGS", None)
     worker = os.path.join(os.path.dirname(__file__), "multihost_worker.py")
     procs = [

@@ -114,7 +114,7 @@ def test_regime_hints_are_performance_only(sb, hint):
 
 @pytest.mark.parametrize("k,p", [(36, 8), (45, 13)])
 def test_global_patch_long_kmers_chimeric(k, p):
-    """Round-4 regression (ADVICE high): patch_global re-derived restart
+    """Regression: patch_global once re-derived restart
     windows from only 3 packed words, so every window char at offset
     >= 32 read as 'A' for k > 33 — chimeric reads (random prefix, genomic
     suffix) whose restarts must resolve REAL k-mers caught 2169/5670

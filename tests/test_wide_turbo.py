@@ -13,6 +13,8 @@ import subprocess
 import sys
 import textwrap
 
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 
 _SCRIPT = textwrap.dedent(
     """
@@ -83,7 +85,7 @@ _SCRIPT = textwrap.dedent(
 
 def test_wide_turbo_matches_wide_lf_engine():
     env = dict(os.environ)
-    env["PYTHONPATH"] = "/root/repo"
+    env["PYTHONPATH"] = _ROOT
     env["JAX_PLATFORMS"] = "cpu"
     env.pop("XLA_FLAGS", None)
     proc = subprocess.run(
